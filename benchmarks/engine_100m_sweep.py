@@ -1,5 +1,5 @@
 """Chunk-size sweep for the 100M steady-state probe: build + upload the
-100M-row table ONCE (the tunnel upload costs ~10 min), then re-run the
+100M-row table ONCE (the upload dominates set-up), then re-run the
 chunked aggregate query at several QE_CHUNK_ROWS settings through the same
 session — compiled programs are keyed by capacity so the settings don't
 collide.

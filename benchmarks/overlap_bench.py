@@ -10,8 +10,8 @@ Compares, on an 8-device virtual CPU mesh:
 Prints one JSON line with both wall-clocks and the separately-timed phase
 costs; the overlap claim is `overlapped_ms < exchange_ms + aggregate_ms`.
 On the virtual mesh the win comes from dispatch fusion + smaller live
-intermediates; on real ICI the XLA latency-hiding scheduler additionally
-runs the collective DMA under the scatter-adds.
+intermediates; on a real interconnect the XLA latency-hiding scheduler
+additionally runs the collective under the scatter-adds.
 
 Usage: python benchmarks/overlap_bench.py  (forces JAX_PLATFORMS=cpu,8 dev)
 """

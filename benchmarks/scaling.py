@@ -1,13 +1,12 @@
 """Multi-device scaling efficiency of the SPMD distributed aggregate.
 
-BASELINE.md target: >= 80% rows/s scaling efficiency at N >= 2 hosts. Real
-multi-host TPU hardware is not available in this environment, so this
-measures the same SPMD program (local partial aggregate -> hash all_to_all
+BASELINE.md target: >= 80% rows/s scaling efficiency at N >= 2 hosts. This
+measures the SPMD program (local partial aggregate -> hash all_to_all
 exchange -> local final aggregate; parallel/spmd.py) on a virtual N-device
 CPU mesh (xla_force_host_platform_device_count). That validates the
 communication structure and the balance of the partitioning — each virtual
 device executes its shard on host threads — but the absolute interconnect
-cost on ICI must be measured on a real pod slice.
+cost must be measured on real devices.
 
 Strong scaling: total rows fixed, devices varied.
 

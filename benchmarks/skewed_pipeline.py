@@ -5,9 +5,9 @@ Two measurements, each printed as a JSON line:
 
 1. single_chip: throughput of the fused filter -> FK join -> grouped
    aggregate -> sort pipeline at QE_SKEW_ROWS rows (default 10^8) on the
-   real TPU chip. Keys are Zipf-skewed; the single-chip path is
+   default device. Keys are Zipf-skewed; the single-device path is
    skew-insensitive by construction (rank lookups, no hash table chains),
-   which is itself the TPU-native answer to join skew on one chip.
+   which is itself the answer to join skew on one device.
 
 2. exchange_balance: on an 8-device virtual CPU mesh (the multi-host
    stand-in per SURVEY.md §4), the hash-repartition exchange
@@ -17,7 +17,7 @@ Two measurements, each printed as a JSON line:
    (max/mean) — the projected scaling bottleneck — and asserts the skewed
    salted case lands within 1.5x of uniform (BASELINE skew target). These
    are structural/projected numbers: virtual devices serialize on one
-   host, so wall-clock is not ICI time.
+   host, so wall-clock is not interconnect time.
 
 Usage:  python benchmarks/skewed_pipeline.py [single_chip|balance|all]
 Env:    QE_SKEW_ROWS (default 10^8), QE_SKEW_ZIPF (default 1.2)
@@ -51,7 +51,6 @@ def single_chip():
     import jax
     import jax.numpy as jnp
     from query_engine_tpu.ops import kernels as K
-    from query_engine_tpu.ops.pallas.group_agg import grouped_sum_count
 
     cap = 1 << max(17, (N_ROWS - 1).bit_length())
     n = N_ROWS
@@ -64,15 +63,14 @@ def single_chip():
     dim_val = rng.integers(0, 1000, N_DIM)
     dim_grp = rng.integers(0, N_GROUPS, N_DIM).astype(np.int32)
 
-    use_mxu = jax.devices()[0].platform != "cpu"
 
     def pipeline(keys, vals, filt, dim_val, dim_grp, n_rows):
         live = K.live_mask(cap, n_rows)
         keep = live & (filt > 9)  # ~90% selectivity filter
         # FK join: key IS the dim row id (bounds-direct ranks — the
         # compiled pipeline's stats-direct fast path, zero sorts).
-        # Random gathers are element-serial on TPU (~12 ns/row), so the
-        # two narrow dim columns pack into ONE gathered i32 plane
+        # Each random gather pays per element, so the two narrow dim
+        # columns pack into ONE gathered i32 plane
         # (bounds from stats: dim_val < 1000, grp < N_GROUPS).
         packed = (dim_val.astype(jnp.int32) * N_GROUPS
                   + dim_grp.astype(jnp.int32))
@@ -80,14 +78,9 @@ def single_chip():
         jval = vals + (g // N_GROUPS).astype(vals.dtype)
         grp = g % N_GROUPS
         # grouped aggregate over the joined group column
-        if use_mxu:
-            s, c = grouped_sum_count(jval, keep, grp, N_GROUPS)
-        else:
-            s, _ = K.segment_aggregate("sum", jval, keep, grp, n_rows,
-                                       N_GROUPS)
-            c, _ = K.segment_aggregate("count_star", None, None,
-                                       jnp.where(keep, grp, 0), n_rows,
-                                       N_GROUPS)
+        s, _ = K.segment_aggregate("sum", jval, keep, grp, n_rows, N_GROUPS)
+        c, _ = K.segment_aggregate("count", jval, keep, grp, n_rows,
+                                   N_GROUPS)
         # ORDER BY sum DESC over the group table (top-level sort)
         perm = K.sort_permutation([s], [c > 0], [False], [False], N_GROUPS)
         return s[perm], c[perm], jnp.sum(keep.astype(jnp.int64))

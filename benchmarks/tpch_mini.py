@@ -28,7 +28,10 @@ sys.path.insert(0, REPO)
 import query_engine_tpu  # noqa: E402,F401
 from query_engine_tpu.core.schema import Field, Schema  # noqa: E402
 from query_engine_tpu.core.types import DataType  # noqa: E402
-from query_engine_tpu.columnar.batch import ColumnBatch  # noqa: E402
+from query_engine_tpu.columnar.batch import (  # noqa: E402
+    Column, ColumnBatch, padded_capacity,
+)
+from query_engine_tpu.columnar.dictionary import Dictionary  # noqa: E402
 from query_engine_tpu.engine.session import Session  # noqa: E402
 
 EPOCH = datetime.date(1970, 1, 1)
@@ -38,99 +41,8 @@ def d(y, m, dd):
     return (datetime.date(y, m, dd) - EPOCH).days
 
 
-def build(n_li: int):
-    rng = np.random.default_rng(19920521)
-    n_ord = max(n_li // 4, 64)
-    n_cust = max(n_ord // 10, 16)
-
-    n_supp = max(n_ord // 100, 8)
-    n_part = max(n_li // 20, 16)
-    n_nation, n_region = 25, 5
-
-    region = ColumnBatch.from_pydict({
-        "r_regionkey": np.arange(n_region),
-        "r_name": ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"],
-    })
-    nation = ColumnBatch.from_pydict({
-        "n_nationkey": np.arange(n_nation),
-        "n_name": [f"NATION{i:02d}" for i in range(n_nation)],
-        "n_regionkey": (np.arange(n_nation) % n_region),
-    })
-    supp_comments = [
-        "quick deliveries", "Customer slow Complaints filed", "reliable",
-        "pending audit", "bulk only",
-    ]
-    supp = ColumnBatch.from_pydict({
-        "s_suppkey": np.arange(n_supp),
-        "s_nationkey": rng.integers(0, n_nation, n_supp),
-        "s_name": [f"Supplier#{i:09d}" for i in range(n_supp)],
-        "s_acctbal": np.round(rng.uniform(-999.99, 9999.99, n_supp), 2),
-        "s_address": [f"addr {i}" for i in range(n_supp)],
-        "s_comment": rng.choice(supp_comments, n_supp).tolist(),
-    })
-    part_types = [
-        "PROMO BURNISHED COPPER", "PROMO PLATED TIN", "STANDARD BRUSHED",
-        "ECONOMY ANODIZED STEEL", "MEDIUM POLISHED NICKEL",
-        "LARGE BRUSHED BRASS",
-    ]
-    part_names = [
-        "green tomato", "forest lace", "blue steel", "green almond",
-        "rosy peach", "forest green mint", "ivory snow", "misty plum",
-    ]
-    containers = ["SM CASE", "SM BOX", "MED BOX", "MED BAG", "LG CASE",
-                  "LG BOX", "JUMBO PKG", "WRAP CASE"]
-    part = ColumnBatch.from_pydict({
-        "p_partkey": np.arange(n_part),
-        "p_type": rng.choice(part_types, n_part).tolist(),
-        "p_name": rng.choice(part_names, n_part).tolist(),
-        "p_brand": [f"Brand#{b}" for b in rng.integers(11, 56, n_part)],
-        "p_size": rng.integers(1, 51, n_part),
-        "p_container": rng.choice(containers, n_part).tolist(),
-        "p_mfgr": [f"Manufacturer#{m}" for m in rng.integers(1, 6, n_part)],
-    })
-    # partsupp: every part stocked by 2 suppliers (deterministic spread)
-    ps_part = np.repeat(np.arange(n_part), 2)
-    ps_supp = (ps_part * 7 + np.tile(np.array([0, 3]), n_part)) % n_supp
-    partsupp = ColumnBatch.from_pydict({
-        "ps_partkey": ps_part,
-        "ps_suppkey": ps_supp,
-        "ps_availqty": rng.integers(1, 10000, 2 * n_part),
-        "ps_supplycost": np.round(rng.uniform(1.0, 1000.0, 2 * n_part), 2),
-    })
-    cust = ColumnBatch.from_pydict({
-        "c_custkey": np.arange(n_cust),
-        "c_nationkey": rng.integers(0, n_nation, n_cust),
-        "c_mktsegment": rng.choice(
-            ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"],
-            n_cust,
-        ).tolist(),
-        "c_name": [f"Customer#{i:09d}" for i in range(n_cust)],
-        "c_acctbal": np.round(rng.uniform(-999.99, 9999.99, n_cust), 2),
-        "c_phone": [
-            f"{cc}-{rng.integers(100, 999)}-{rng.integers(100, 999)}-"
-            f"{rng.integers(1000, 9999)}"
-            for cc in rng.integers(10, 35, n_cust)
-        ],
-    })
-    o_date = rng.integers(d(1992, 1, 1), d(1998, 8, 2), n_ord)
-    o_comments = [
-        "deposits nag", "special packages requests", "furious accounts",
-        "special asymptotes requests wake", "quiet ideas",
-    ]
-    orders = ColumnBatch.from_pydict({
-        "o_orderkey": np.arange(n_ord),
-        # top third of custkeys place no orders (keeps Q13's zero bucket and
-        # Q22's NOT EXISTS branch populated, as in real TPC-H)
-        "o_custkey": rng.integers(0, max(2 * n_cust // 3, 1), n_ord),
-        "o_orderdate": o_date,
-        "o_shippriority": np.zeros(n_ord, dtype=np.int64),
-        "o_orderpriority": rng.choice(
-            ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"],
-            n_ord,
-        ).tolist(),
-        "o_totalprice": np.round(rng.uniform(900.0, 500000.0, n_ord), 2),
-        "o_comment": rng.choice(o_comments, n_ord).tolist(),
-    }, Schema([
+_SCHEMAS = {
+    "orders": Schema([
         Field("o_orderkey", DataType.int64()),
         Field("o_custkey", DataType.int64()),
         Field("o_orderdate", DataType.date32()),
@@ -138,28 +50,8 @@ def build(n_li: int):
         Field("o_orderpriority", DataType.utf8()),
         Field("o_totalprice", DataType.float64()),
         Field("o_comment", DataType.utf8()),
-    ]))
-    okey = rng.integers(0, n_ord, n_li)
-    ship = o_date[okey] + rng.integers(1, 122, n_li)
-    commit = o_date[okey] + rng.integers(30, 91, n_li)
-    receipt = ship + rng.integers(1, 31, n_li)
-    li = ColumnBatch.from_pydict({
-        "l_orderkey": okey,
-        "l_suppkey": rng.integers(0, n_supp, n_li),
-        "l_partkey": rng.integers(0, n_part, n_li),
-        "l_shipmode": rng.choice(
-            ["MAIL", "SHIP", "AIR", "TRUCK", "RAIL", "FOB", "REG AIR"], n_li
-        ).tolist(),
-        "l_quantity": rng.integers(1, 51, n_li),
-        "l_extendedprice": np.round(rng.uniform(900, 105000, n_li), 2),
-        "l_discount": np.round(rng.uniform(0.0, 0.1, n_li), 2),
-        "l_tax": np.round(rng.uniform(0.0, 0.08, n_li), 2),
-        "l_returnflag": rng.choice(["A", "N", "R"], n_li).tolist(),
-        "l_linestatus": rng.choice(["O", "F"], n_li).tolist(),
-        "l_shipdate": ship,
-        "l_commitdate": commit,
-        "l_receiptdate": receipt,
-    }, Schema([
+    ]),
+    "lineitem": Schema([
         Field("l_orderkey", DataType.int64()),
         Field("l_suppkey", DataType.int64()),
         Field("l_partkey", DataType.int64()),
@@ -173,17 +65,187 @@ def build(n_li: int):
         Field("l_shipdate", DataType.date32()),
         Field("l_commitdate", DataType.date32()),
         Field("l_receiptdate", DataType.date32()),
-    ]))
+    ]),
+}
+
+# registration order; build() returns the batches in this order
+TABLES = ("customer", "orders", "lineitem", "supplier", "nation", "region",
+          "part", "partsupp")
+
+
+def generate(n_li: int):
+    """The eight tables as host arrays, {table: {column: ndarray}}: dates
+    are days since 1970-01-01, strings are numpy str arrays. Seeded, so
+    the same n_li always gives the same data."""
+    rng = np.random.default_rng(19920521)
+    n_ord = max(n_li // 4, 64)
+    n_cust = max(n_ord // 10, 16)
+
+    n_supp = max(n_ord // 100, 8)
+    n_part = max(n_li // 20, 16)
+    n_nation, n_region = 25, 5
+
+    region = {
+        "r_regionkey": np.arange(n_region),
+        "r_name": np.asarray(
+            ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+        ),
+    }
+    nation = {
+        "n_nationkey": np.arange(n_nation),
+        "n_name": np.asarray([f"NATION{i:02d}" for i in range(n_nation)]),
+        "n_regionkey": (np.arange(n_nation) % n_region),
+    }
+    supp_comments = [
+        "quick deliveries", "Customer slow Complaints filed", "reliable",
+        "pending audit", "bulk only",
+    ]
+    supp = {
+        "s_suppkey": np.arange(n_supp),
+        "s_nationkey": rng.integers(0, n_nation, n_supp),
+        "s_name": np.asarray([f"Supplier#{i:09d}" for i in range(n_supp)]),
+        "s_acctbal": np.round(rng.uniform(-999.99, 9999.99, n_supp), 2),
+        "s_address": np.asarray([f"addr {i}" for i in range(n_supp)]),
+        "s_comment": rng.choice(supp_comments, n_supp),
+    }
+    part_types = [
+        "PROMO BURNISHED COPPER", "PROMO PLATED TIN", "STANDARD BRUSHED",
+        "ECONOMY ANODIZED STEEL", "MEDIUM POLISHED NICKEL",
+        "LARGE BRUSHED BRASS",
+    ]
+    part_names = [
+        "green tomato", "forest lace", "blue steel", "green almond",
+        "rosy peach", "forest green mint", "ivory snow", "misty plum",
+    ]
+    containers = ["SM CASE", "SM BOX", "MED BOX", "MED BAG", "LG CASE",
+                  "LG BOX", "JUMBO PKG", "WRAP CASE"]
+    part = {
+        "p_partkey": np.arange(n_part),
+        "p_type": rng.choice(part_types, n_part),
+        "p_name": rng.choice(part_names, n_part),
+        "p_brand": np.asarray(
+            [f"Brand#{b}" for b in rng.integers(11, 56, n_part)]
+        ),
+        "p_size": rng.integers(1, 51, n_part),
+        "p_container": rng.choice(containers, n_part),
+        "p_mfgr": np.asarray(
+            [f"Manufacturer#{m}" for m in rng.integers(1, 6, n_part)]
+        ),
+    }
+    # partsupp: every part stocked by 2 suppliers (deterministic spread)
+    ps_part = np.repeat(np.arange(n_part), 2)
+    ps_supp = (ps_part * 7 + np.tile(np.array([0, 3]), n_part)) % n_supp
+    partsupp = {
+        "ps_partkey": ps_part,
+        "ps_suppkey": ps_supp,
+        "ps_availqty": rng.integers(1, 10000, 2 * n_part),
+        "ps_supplycost": np.round(rng.uniform(1.0, 1000.0, 2 * n_part), 2),
+    }
+    cust = {
+        "c_custkey": np.arange(n_cust),
+        "c_nationkey": rng.integers(0, n_nation, n_cust),
+        "c_mktsegment": rng.choice(
+            ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"],
+            n_cust,
+        ),
+        "c_name": np.asarray([f"Customer#{i:09d}" for i in range(n_cust)]),
+        "c_acctbal": np.round(rng.uniform(-999.99, 9999.99, n_cust), 2),
+        "c_phone": np.asarray([
+            f"{cc}-{rng.integers(100, 999)}-{rng.integers(100, 999)}-"
+            f"{rng.integers(1000, 9999)}"
+            for cc in rng.integers(10, 35, n_cust)
+        ]),
+    }
+    o_date = rng.integers(d(1992, 1, 1), d(1998, 8, 2), n_ord)
+    o_comments = [
+        "deposits nag", "special packages requests", "furious accounts",
+        "special asymptotes requests wake", "quiet ideas",
+    ]
+    orders = {
+        "o_orderkey": np.arange(n_ord),
+        # top third of custkeys place no orders (keeps Q13's zero bucket and
+        # Q22's NOT EXISTS branch populated, as in real TPC-H)
+        "o_custkey": rng.integers(0, max(2 * n_cust // 3, 1), n_ord),
+        "o_orderdate": o_date,
+        "o_shippriority": np.zeros(n_ord, dtype=np.int64),
+        "o_orderpriority": rng.choice(
+            ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"],
+            n_ord,
+        ),
+        "o_totalprice": np.round(rng.uniform(900.0, 500000.0, n_ord), 2),
+        "o_comment": rng.choice(o_comments, n_ord),
+    }
+    okey = rng.integers(0, n_ord, n_li)
+    ship = o_date[okey] + rng.integers(1, 122, n_li)
+    commit = o_date[okey] + rng.integers(30, 91, n_li)
+    receipt = ship + rng.integers(1, 31, n_li)
+    li = {
+        "l_orderkey": okey,
+        "l_suppkey": rng.integers(0, n_supp, n_li),
+        "l_partkey": rng.integers(0, n_part, n_li),
+        "l_shipmode": rng.choice(
+            ["MAIL", "SHIP", "AIR", "TRUCK", "RAIL", "FOB", "REG AIR"], n_li
+        ),
+        "l_quantity": rng.integers(1, 51, n_li),
+        "l_extendedprice": np.round(rng.uniform(900, 105000, n_li), 2),
+        "l_discount": np.round(rng.uniform(0.0, 0.1, n_li), 2),
+        "l_tax": np.round(rng.uniform(0.0, 0.08, n_li), 2),
+        "l_returnflag": rng.choice(["A", "N", "R"], n_li),
+        "l_linestatus": rng.choice(["O", "F"], n_li),
+        "l_shipdate": ship,
+        "l_commitdate": commit,
+        "l_receiptdate": receipt,
+    }
+    return {
+        "customer": cust, "orders": orders, "lineitem": li,
+        "supplier": supp, "nation": nation, "region": region,
+        "part": part, "partsupp": partsupp,
+    }
+
+
+def _batch(cols, schema=None):
+    """ColumnBatch from generate()'s host arrays, encoded in bulk: each
+    string column becomes a sorted dictionary through one np.unique, and
+    no value is null."""
+    n = len(next(iter(cols.values())))
+    cap = padded_capacity(n)
+
+    def pad(a, fill=0):
+        out = np.full(cap, fill, dtype=a.dtype)
+        out[:n] = a
+        return out
+
+    fields = list(schema) if schema is not None else [
+        Field(name, DataType.utf8() if a.dtype.kind == "U"
+              else DataType.float64() if a.dtype.kind == "f"
+              else DataType.int64())
+        for name, a in cols.items()
+    ]
+    valid = pad(np.ones(n, bool), False)
+    columns = []
+    for f in fields:
+        a = cols[f.name]
+        if a.dtype.kind == "U":
+            uniq, codes = np.unique(a, return_inverse=True)
+            columns.append(Column(pad(codes.astype(np.int32)), valid,
+                                  f.data_type, Dictionary(uniq.astype(object))))
+        else:
+            columns.append(Column(pad(a.astype(f.data_type.device_dtype)),
+                                  valid, f.data_type, None))
+    return ColumnBatch(Schema(fields), columns, n)
+
+
+def build(n_li: int, raw=None):
+    """A Session with the eight tables registered, and their batches in
+    TABLES order. `raw` is generate(n_li)'s output, if already made."""
+    raw = raw if raw is not None else generate(n_li)
     s = Session()
-    s.register_table("customer", cust)
-    s.register_table("orders", orders)
-    s.register_table("lineitem", li)
-    s.register_table("supplier", supp)
-    s.register_table("nation", nation)
-    s.register_table("region", region)
-    s.register_table("part", part)
-    s.register_table("partsupp", partsupp)
-    return s, (cust, orders, li, supp, nation, region, part, partsupp)
+    batches = []
+    for name in TABLES:
+        batch = _batch(raw[name], _SCHEMAS.get(name))
+        s.register_table(name, batch)
+        batches.append(batch)
+    return s, tuple(batches)
 
 
 QUERIES = {

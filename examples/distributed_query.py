@@ -85,7 +85,7 @@ chosen = sched.choose_worker(infos)
 print(f"scheduler: {sched.pending_count} pending after one grab; "
       f"task {first.partition} -> {chosen.address}")
 
-# ---- 7) SPMD skew-aware salted join (the TPU-native shuffle) ---------
+# ---- 7) SPMD skew-aware salted join (the collective shuffle) ---------
 import os
 if os.environ.get("JAX_PLATFORMS", "") == "cpu":
     import jax

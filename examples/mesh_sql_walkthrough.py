@@ -2,8 +2,8 @@
 
 The reference's distributed layer plans stages and then *simulates* them
 (crates/query-distributed/src/executor.rs:242-251 echoes partition input;
-worker.rs:132-137 is a TODO). This engine's distributed path is real and
-TPU-native: `Session(mesh=...)` lowers each eligible query to ONE jitted
+worker.rs:132-137 is a TODO). This engine's distributed path is real:
+`Session(mesh=...)` lowers each eligible query to ONE jitted
 `shard_map` program over the mesh —
 
     sharded scan  ->  local filter  ->  all_to_all hash repartition
@@ -15,8 +15,8 @@ between collectives reuses the single-chip compiled kernels, so results
 are bit-identical to the single-device engine.
 
 This demo runs on a virtual 8-device CPU mesh (the same mechanism the
-test suite and the driver's multichip dryrun use); on a real pod slice
-the identical program runs over ICI.
+test suite uses); on real GPUs the identical program runs over their
+interconnect (python chip_smoke.py --devices 4).
 
 Run: python examples/mesh_sql_walkthrough.py
 """

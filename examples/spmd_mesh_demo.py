@@ -1,5 +1,5 @@
-"""SPMD shuffle over an 8-device mesh (TPU-native exclusive: the all_to_all
-exchange that replaces the reference's coordinator/worker shuffle)."""
+"""SPMD shuffle over an 8-device mesh: the all_to_all exchange that
+replaces the reference's coordinator/worker shuffle."""
 import os
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")

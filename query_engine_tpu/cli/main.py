@@ -16,7 +16,7 @@ from query_engine_tpu.cli.config import CliConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="qe",
-        description="query-engine-tpu: a TPU-native vectorized SQL engine",
+        description="query-engine-tpu: a vectorized SQL engine on JAX/XLA",
     )
     sub = p.add_subparsers(dest="command")
 

@@ -1,6 +1,6 @@
 """ColumnBatch: the engine's columnar batch (Arrow RecordBatch analog).
 
-TPU-native layout (SURVEY.md §7 design stance):
+Device layout (SURVEY.md §7 design stance):
   * a batch is a list of fixed-width 1-D device planes, one per column,
     all padded to the same power-of-two `capacity` (>=128) so every operator
     sees a static shape and XLA compiles each capacity bucket exactly once;

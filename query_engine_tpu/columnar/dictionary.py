@@ -2,7 +2,7 @@
 
 The reference engine stores strings as Arrow Utf8 arrays and sorts/compares
 them with Arrow kernels (reference query-executor/src/operators.rs string
-paths). On TPU, variable-width data cannot live in device lanes, so every
+paths). Variable-width data cannot live in fixed-width device planes, so every
 dictionary-typed column (Utf8, Json, ...) is encoded at ingest as int32 codes
 into a host-side **sorted** dictionary. Because the dictionary is sorted,
 code order == lexicographic order, and ORDER BY / comparisons / GROUP BY /

@@ -4,7 +4,7 @@ Parity surface: reference crates/query-core/src/types.rs:5-126 (`DataType` enum
 including PG extension types — Uuid, Decimal128, Interval, Json, List, seven
 geometric types, Enum, TsVector/TsQuery — with to_arrow/from_arrow).
 
-TPU-native representation: every type lowers to a fixed-width device lane dtype
+Device representation: every type lowers to a fixed-width device lane dtype
 (`device_dtype`). Variable-width types (Utf8, Json, TsVector, ...) are
 dictionary-encoded at ingest: the device plane holds int32 codes into a
 host-side sorted dictionary, so code order == lexicographic order and ORDER

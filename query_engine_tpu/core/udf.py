@@ -3,7 +3,7 @@
 Parity surface: reference crates/query-core/src/udf.rs:13-108
 (`ScalarUdf::{name,signature,invoke}`, `UdfSignature`, `UdfRegistry`).
 
-TPU-native twist: a UDF's `invoke` receives whole device columns (jnp arrays
+Device-side twist: a UDF's `invoke` receives whole device columns (jnp arrays
 plus validity masks) and returns a (data, validity) pair, so UDFs vectorize
 and fuse into the surrounding jitted pipeline exactly like built-in scalar
 functions.

@@ -6,7 +6,7 @@ evaluate_expr over Arrow kernels: arithmetic with per-type dispatch
 (:539-570), `@@` full-text match (:571-611), literal broadcast (:322-347),
 scalar functions (:64-319).
 
-TPU-native evaluation: every result is (device data plane, device validity
+Device-side evaluation: every result is (device data plane, device validity
 plane, optional host dictionary). Numeric work happens on-device in jnp;
 string transforms run once per *dictionary value* on the host (dictionaries
 are tiny relative to row counts), producing remap planes the device gathers —
@@ -1477,7 +1477,6 @@ class Evaluator:
         lm = K.live_mask(sub.capacity, sub.num_rows)
         sub_has_null = jnp.any(lm & ~svalid)  # traced-compatible
         # rank membership: joint sort + presence scatter/gather
-        # (searchsorted lowers 50-100x slower than a sort on TPU)
         lr, rr = K.join_ranks(
             [(probe, v.validity)], [(build, svalid)],
             batch.num_rows, sub.num_rows,
@@ -1591,8 +1590,7 @@ class Evaluator:
                 skeys.append((sv.data, sv.validity))
             lr, rr = K.join_ranks(okeys, skeys, batch.num_rows, sub.num_rows)
             # grouped subplan => unique keys: rank -> row scatter table +
-            # one lookup gather (searchsorted lowers 50-100x slower than a
-            # sort on TPU; docs/TPU_DESIGN.md #2)
+            # one lookup gather (no searchsorted)
             row, found = K.fk_join_right_lookup(
                 lr, rr, batch.num_rows, sub.num_rows
             )

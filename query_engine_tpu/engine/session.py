@@ -32,9 +32,7 @@ from query_engine_tpu.plan.optimizer import Optimizer
 from query_engine_tpu.plan.planner import Planner
 from query_engine_tpu.sql import ast
 from query_engine_tpu.sql.parser import parse_sql
-from query_engine_tpu.storage.csv import CsvDataSource
 from query_engine_tpu.storage.memory import MemoryDataSource
-from query_engine_tpu.storage.parquet import ParquetDataSource
 
 MAX_RECURSION_ITERS = 1000  # parity: backend.rs recursive CTE cap
 
@@ -62,8 +60,12 @@ class Session:
                 from query_engine_tpu.parallel.mesh import make_mesh
 
                 devs = jax.devices()
-                if len(devs) >= n:
-                    mesh = make_mesh(devs[:n])
+                if len(devs) < n:
+                    raise ExecutionError(
+                        f"QE_MESH_DEVICES={n} but only {len(devs)} "
+                        f"{devs[0].platform} device(s) exist"
+                    )
+                mesh = make_mesh(devs[:n])
         if mesh is not None:
             from query_engine_tpu.parallel.mesh_pipeline import MeshPipeline
 
@@ -90,12 +92,16 @@ class Session:
 
     # ---- registration --------------------------------------------------
     def register_csv(self, name: str, path: str, schema: Optional[Schema] = None):
+        from query_engine_tpu.storage.csv import CsvDataSource  # needs pyarrow
+
         src = CsvDataSource(path, schema)
         self.sources[name.lower()] = src
         self.planner.register_table(name, src.schema())
         return src
 
     def register_parquet(self, name: str, path: str):
+        from query_engine_tpu.storage.parquet import ParquetDataSource  # needs pyarrow
+
         src = ParquetDataSource(path)
         self.sources[name.lower()] = src
         self.planner.register_table(name, src.schema())

@@ -11,8 +11,11 @@ from __future__ import annotations
 import json
 from typing import List, Optional
 
-import pyarrow as pa
-import pyarrow.flight as flight
+try:
+    import pyarrow as pa
+    import pyarrow.flight as flight
+except ImportError as e:  # pyarrow is optional for the rest
+    raise ImportError(f"Arrow Flight needs pyarrow: {e}") from e
 
 from query_engine_tpu.core.config import FlightEndpoint
 from query_engine_tpu.core.errors import FlightError

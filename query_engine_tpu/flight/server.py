@@ -20,8 +20,11 @@ import json
 import threading
 from typing import Optional
 
-import pyarrow as pa
-import pyarrow.flight as flight
+try:
+    import pyarrow as pa
+    import pyarrow.flight as flight
+except ImportError as e:  # pyarrow is optional for the rest
+    raise ImportError(f"Arrow Flight needs pyarrow: {e}") from e
 
 from query_engine_tpu.core.config import FlightConfig
 from query_engine_tpu.core.errors import QueryError

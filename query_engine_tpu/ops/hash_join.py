@@ -17,14 +17,11 @@ executor.rs:500-540). This is the classic build/probe redesign:
     match => done, else advance. All rows advance in lockstep; iteration
     count = the longest active probe sequence.
 
-TPU economics (measured on v5e, docs/TPU_DESIGN.md): random HBM gathers/
-scatters are ~element-serial on TPU, so every probe round costs two
-full-length gathers, and probe chains serialize rounds. Head-to-head at
-8M probe x 1M unique build (48-bit keys): hash build+probe 22.4 s vs
-sort-rank join 250 ms — the sort-rank path wins by ~90x, so it stays the
-engine default on TPU. This module exists as the BASELINE "hash join
-build/probe" operator, as the correct design for gather-friendly backends
-(CPU), and as the measurement that justifies the sort-based choice.
+Every probe round costs two full-length random gathers, and probe
+chains serialize rounds; the engine's default is the sort-rank join. On
+the H100, with fast random access and hardware atomics, the two have not
+been measured against each other yet (ROADMAP). This module exists as the
+BASELINE "hash join build/probe" operator and as that comparison:
 bench.py reports both head-to-head.
 
 Scope: build keys must be UNIQUE (SQL FK/dimension joins — the engine
@@ -44,7 +41,7 @@ _EMPTY = jnp.int32(2147483647)  # INT32_MAX = empty slot sentinel
 
 
 def _mix32(x: jnp.ndarray) -> jnp.ndarray:
-    """murmur3 finalizer on uint32 lanes (TPU-native width)."""
+    """murmur3 finalizer on uint32 lanes."""
     x = x ^ (x >> 16)
     x = x * jnp.uint32(0x85EBCA6B)
     x = x ^ (x >> 13)
@@ -55,7 +52,7 @@ def _mix32(x: jnp.ndarray) -> jnp.ndarray:
 
 def _hash_key(key: jnp.ndarray) -> jnp.ndarray:
     """Key plane -> uint32 hash. 64-bit keys mix hi/lo words separately
-    (64-bit multiplies are emulated on TPU)."""
+    on 32-bit multiplies."""
     if key.dtype in (jnp.int64, jnp.uint64):
         u = key.astype(jnp.uint64)
         lo = (u & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32)

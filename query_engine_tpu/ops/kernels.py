@@ -7,7 +7,7 @@ build/probe for all five join types (vs the Cartesian join_batches
 executor.rs:500-540), real grouped hash aggregation (vs the empty vec at
 executor.rs:188-189), and real window functions (vs executor.rs:76-80).
 
-Design rules (SURVEY.md §7, pallas_guide.md):
+Design rules (SURVEY.md §7):
   * static shapes everywhere — every function takes/returns arrays at a
     fixed capacity plus a live-row count; callers pick pow2 capacity buckets
     so XLA compiles each bucket once;
@@ -43,7 +43,7 @@ def live_mask(capacity: int, num_rows) -> jnp.ndarray:
     operators instead of syncing counts; engine/pipeline.py)."""
     if getattr(num_rows, "ndim", 0) == 1 and num_rows.dtype == jnp.bool_:
         return num_rows
-    # int32 iota: capacities are < 2^31 and s64 is emulated on TPU
+    # int32 iota: capacities are < 2^31
     return jnp.arange(capacity, dtype=jnp.int32) < num_rows
 
 
@@ -68,18 +68,16 @@ _I32_MIN = np.int32(np.iinfo(np.int32).min)
 
 
 def _f32_orderable_bits(x: jnp.ndarray) -> jnp.ndarray:
-    """float32 variant of the sign-flip trick (TPU-native: s32 bitcast works
-    on TPU where the s64 one does not — x64 is emulated there)."""
+    """float32 variant of the sign-flip trick, on a 32-bit bitcast."""
     bits = jax.lax.bitcast_convert_type(x.astype(jnp.float32), jnp.int32)
     return jnp.where(bits < 0, _I32_MIN - bits, bits)
 
 
 def orderable_i64(data: jnp.ndarray) -> jnp.ndarray:
     """Normalize a key column to a sortable plane preserving order &
-    equality. 32-bit-or-smaller lanes map to int32 (on TPU — no 64-bit
-    ALU — that keeps the hot sort/scatter path native-width); int64 stays
-    int64; float64 stays float64 — the f64->i64 bitcast does NOT compile on
-    TPU (Mosaic rejects 64-bit bitcasts), and lax.sort handles f64 operands
+    equality. 32-bit-or-smaller lanes map to int32 (half the bytes through
+    the hot sort/scatter path); int64 stays int64; float64 stays float64 —
+    no 64-bit bitcast is needed, and lax.sort handles f64 operands
     natively, so floats ride as themselves (order and equality preserved;
     NaNs are mapped to NULL at ingest)."""
     if data.dtype == jnp.float64:
@@ -237,9 +235,8 @@ def compaction_indices(mask: jnp.ndarray, num_rows, out_capacity: int):
     out_capacity-sized index plane (vectorized Arrow filter_record_batch
     analog, reference executor.rs:131-155).
 
-    TPU note: implemented as cumsum + scatter with int32 index planes —
-    jnp.nonzero lowers to a much slower path on TPU (~100ms/1M vs ~35ms),
-    and s64 scatters cost 3x s32.
+    Implemented as cumsum + scatter with int32 index planes in place of
+    jnp.nonzero; int32 scatters move half the bytes of int64 ones.
     """
     capacity = mask.shape[0]
     m = mask & live_mask(capacity, num_rows)
@@ -276,11 +273,10 @@ def gather_columns_packed(
     bounds: Sequence[Optional[Tuple[int, int]]],
     indices: jnp.ndarray,
     row_valid: Optional[jnp.ndarray] = None,
-    mxu_small: bool = False,
 ):
-    """gather_columns with bit-packing: random gathers are ~element-serial
-    on TPU (~12 ns/row, docs/TPU_DESIGN.md #9), so K columns' 2K gathers
-    (data + validity each) dominate join emits and sorts. Columns whose
+    """gather_columns with bit-packing: each random gather pays per
+    element, so K columns' 2K gathers (data + validity each) dominate join
+    emits and sorts. Columns whose
     static bounds (table stats / dictionary sizes) fit 31 bits pack
     (data - lo) plus their validity bit into shared uint32 words, and ALL
     remaining columns contribute their validity bits too — typically
@@ -345,19 +341,7 @@ def gather_columns_packed(
                 plane = plane | (img << off)
             plane = plane | (valids[i].astype(jnp.uint32) << (off + bits))
         raw_planes.append(plane)
-    if mxu_small and raw_planes and datas[0].shape[0] <= 4096:
-        # small source table: gather the packed words on the MXU as a
-        # one-hot matmul instead of element-serial random gathers
-        from query_engine_tpu.ops.pallas.small_gather import mxu_gather_words
-
-        gathered = mxu_gather_words(
-            indices.astype(jnp.int32),
-            jnp.stack(raw_planes, axis=1),
-            len(raw_planes),
-        )
-        planes = [gathered[:, w] for w in range(len(raw_planes))]
-    else:
-        planes = [p[indices] for p in raw_planes]
+    planes = [p[indices] for p in raw_planes]
 
     out_d, out_v = [], []
     for i in range(n_cols):
@@ -524,7 +508,7 @@ def group_ids(
     keys compose into ONE i64 sort operand — the shape where the bounded
     key-combination space exceeds direct grouping's bucket range but the
     sort still collapses to a single plane (lax.sort cost scales with
-    operand count; docs/TPU_DESIGN.md #9).
+    operand count).
     """
     capacity = key_datas[0].shape[0]
     pad = ~live_mask(capacity, num_rows)
@@ -564,7 +548,7 @@ def group_ids(
             return gid, num_groups, rep
     # one packed i64 operand per 32-bit-image key (nulls group together:
     # null flag in the class word; pad class 2 on the first key) — operand
-    # count, not bit width, is what lax.sort costs on TPU
+    # count, not bit width, is what lax.sort's cost follows
     operands: List[jnp.ndarray] = []
     for i, (data, valid) in enumerate(zip(key_datas, key_valids)):
         key, null = normalize_key(data, valid)
@@ -674,10 +658,10 @@ def _segment_sum_i64(
 ) -> jnp.ndarray:
     """Exact int64 segment sum via bit-chunked int32 scatters.
 
-    Direct s64 scatter-add is ~30x slower than s32 on TPU (emulated 64-bit);
-    splitting the value into unsigned bit chunks, scattering each in int32,
-    and recombining shifted chunk totals is exact (two's complement works
-    out: the implicit sign chunks recombine modulo 2^64) and ~4x faster.
+    Splitting the value into unsigned bit chunks, scattering each in
+    int32, and recombining shifted chunk totals is exact (two's complement
+    works out: the implicit sign chunks recombine modulo 2^64). Whether
+    this beats a native s64 scatter-add depends on the device (ROADMAP).
     Chunk width is chosen statically from capacity so per-segment chunk
     sums cannot overflow int32: 16-bit chunks up to 2^15 rows, 8-bit up to
     2^23; beyond that, fall back to the plain s64 scatter.
@@ -704,8 +688,7 @@ def _segment_sum_i64(
     elif capacity <= (1 << 23):
         bits, n_chunks, acc = 8, 8, jnp.int32
     elif capacity <= (1 << 24):
-        # 255 * 2^24 < 2^32: exact in unsigned 32-bit accumulation (still a
-        # native 32-bit scatter on TPU)
+        # 255 * 2^24 < 2^32: exact in unsigned 32-bit accumulation
         bits, n_chunks, acc = 8, 8, jnp.uint32
     elif capacity <= (1 << 28):
         bits, n_chunks, acc = 4, 16, jnp.uint32
@@ -744,73 +727,6 @@ def _segment_sum_i64(
     return result
 
 
-def _segment_sum_float(
-    data: jnp.ndarray, ok: jnp.ndarray, gid: jnp.ndarray, num_segments: int,
-) -> jnp.ndarray:
-    """Float segment sum. On CPU: native f64 scatter-add. On TPU, f64
-    scatter-adds are emulated 2x32-bit (measured 715 ms vs 65 ms at 2M
-    rows — this was mini-TPC-H Q3's entire budget), so values quantize to
-    dynamic-scale fixed point (same scheme + error bound as the MXU f64
-    path, ops/pallas/group_agg.py) and ride the chunked-i32 scatters;
-    IEEE inf/NaN semantics come from three i32 flag segment-maxes."""
-    x = data.astype(jnp.float64)
-    if jax.devices()[0].platform == "cpu":
-        return jax.ops.segment_sum(
-            jnp.where(ok, x, 0.0), gid, num_segments=num_segments
-        )
-    from query_engine_tpu.ops.pallas.group_agg import _exact_pow2
-
-    n = x.shape[0]
-    finite = jnp.isfinite(x)
-    xf = jnp.where(ok & finite, x, 0.0)
-    m = jnp.max(jnp.abs(xf))
-    # ~2^-40 relative precision matches f64 summation round-off at these
-    # row counts while keeping the chunk-scatter count low (each extra
-    # 8 bits of q is one more full-length i32 scatter)
-    frac_bits = min(61 - max(int(np.ceil(np.log2(max(n, 2)))), 1), 40)
-    t = jnp.maximum(m, np.finfo(np.float64).tiny)
-    adj = jnp.int32(0)
-    for _ in range(6):
-        big = t >= 2.0**100
-        t = jnp.where(big, t * 2.0**-200, t)
-        adj = adj + jnp.where(big, jnp.int32(200), 0)
-    for _ in range(6):
-        small = t < 2.0**-100
-        t = jnp.where(small, t * 2.0**200, t)
-        adj = adj - jnp.where(small, jnp.int32(200), 0)
-    e = (jnp.floor(jnp.log2(t.astype(jnp.float32))).astype(jnp.int32)
-         + adj + 1)
-    k = jnp.clip(frac_bits - e, -1000, 1000).astype(jnp.int32)
-    q = jnp.round(xf * _exact_pow2(k)).astype(jnp.int64)
-    # |q| <= 2^frac_bits: bias bounds cut the chunk scatters to the span
-    cnt_ok = jax.ops.segment_sum(
-        (ok & finite).astype(jnp.int32), gid, num_segments=num_segments
-    ).astype(jnp.int64)
-    s = _segment_sum_i64(
-        q, ok & finite, gid, num_segments,
-        value_bounds=(-(1 << frac_bits), 1 << frac_bits), counts=cnt_ok,
-    ).astype(jnp.float64) * _exact_pow2(-k)
-
-    def fix_nonfinite(s):
-        # rare path: only executes when the batch holds inf/NaN at all
-        flags = [
-            jax.ops.segment_max(
-                jnp.where(ok & f, jnp.int32(1), 0), gid,
-                num_segments=num_segments,
-            ) > 0
-            for f in (jnp.isposinf(x), jnp.isneginf(x), jnp.isnan(x))
-        ]
-        p, ng, nn = flags
-        s = jnp.where(p & ~ng, jnp.inf, s)
-        s = jnp.where(ng & ~p, -jnp.inf, s)
-        s = jnp.where(nn | (p & ng), jnp.nan, s)
-        return s
-
-    return jax.lax.cond(
-        jnp.any(ok & ~finite), fix_nonfinite, lambda s: s, s
-    )
-
-
 def segment_aggregate(
     func: str,
     data: Optional[jnp.ndarray],
@@ -841,8 +757,8 @@ def segment_aggregate(
     ok = lm & validity
     if distinct_first is not None:
         ok = ok & distinct_first
-    # counts in int32 (capacity < 2^31), widened at the boundary: s64
-    # scatters are ~30x slower than s32 on TPU (no 64-bit ALU)
+    # counts in int32 (capacity < 2^31), widened at the boundary: half the
+    # scatter bytes of an s64 count
     cnt = jax.ops.segment_sum(
         ok.astype(jnp.int32), gid, num_segments=num_segments
     ).astype(jnp.int64)
@@ -851,11 +767,13 @@ def segment_aggregate(
     has = cnt > 0
     if func == "sum" or func == "avg":
         if jnp.issubdtype(data.dtype, jnp.floating):
-            s = _segment_sum_float(data, ok, gid, num_segments)
+            s = jax.ops.segment_sum(
+                jnp.where(ok, data.astype(jnp.float64), 0.0), gid,
+                num_segments=num_segments,
+            )
         else:
-            # integer AVG rides the exact chunked-i32 path too (f64
-            # scatter-adds are emulated 2x32-bit on TPU — measured 715 ms
-            # vs 65 ms at 2M rows); the divide happens once per group
+            # integer AVG rides the exact integer path too; the divide
+            # happens once per group
             s = _segment_sum_i64(data, ok, gid, num_segments,
                                  value_bounds=value_bounds, counts=cnt)
         if func == "avg":
@@ -881,8 +799,8 @@ def _segment_extreme(
 
     32-bit lanes take one int32 scatter. 64-bit lanes split into (hi32,
     biased lo32) and take two int32 scatters: the extreme's high word first,
-    then the extreme low word among rows whose high word matches — measured
-    ~9x faster than a 64-bit segment_min on TPU (s64 scatters are emulated).
+    then the extreme low word among rows whose high word matches, in place
+    of one 64-bit segment_min.
     Results for empty groups are garbage; callers mask by the count plane.
     """
     red = jax.ops.segment_min if is_min else jax.ops.segment_max
@@ -928,8 +846,8 @@ def global_aggregate(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Ungrouped aggregate as a plain tree reduction. The grouped kernel
     with a constant group id degenerates to a scatter-add where EVERY row
-    collides on one address — measured multiple seconds at 32M rows on TPU;
-    a reduction is milliseconds. Returns [out_len] planes with the result
+    collides on one address and serialises; a reduction does not.
+    Returns [out_len] planes with the result
     in slot 0 (same layout the executors slice)."""
     capacity = (data if data is not None else validity).shape[0] \
         if (data is not None or validity is not None) else None
@@ -1056,7 +974,7 @@ def _join_ranks_full(left_keys, right_keys, n_left, n_right,
     # sort order: live non-null rows first (grouped by key), then nulls,
     # then pad — so rank-r rows are contiguous from the front. Each
     # 32-bit-image key packs its class word + unsigned key image into ONE
-    # i64 operand (operand count is the lax.sort cost on TPU).
+    # i64 operand (operand count is what lax.sort's cost follows).
     lead = pad.astype(jnp.int32) * 2
     if not null_equal:
         lead = lead + any_null.astype(jnp.int32)
@@ -1111,8 +1029,7 @@ def join_ranks_counts(
     """Fused join_ranks + join_counts from ONE joint sort.
 
     join_counts' per-left-row count was a random gather from the rank
-    table (`cnt_r[lr_c]`, ~12 ns/row element-serial on TPU — the largest
-    single term in the 355 ms/16.7M round-3 measurement). Here the
+    table (`cnt_r[lr_c]`, a full-length random gather). Here the
     per-segment right-count is computed IN SORTED SPACE with scans
     (bandwidth-bound) and scattered once to row order — the scatter
     shares its cost class with the rank scatter that already exists.
@@ -1260,7 +1177,7 @@ def join_counts(
     n_left,
     n_right,
 ):
-    """Pass 1: per-left-row match counts. No searchsorted (slow on TPU) —
+    """Pass 1: per-left-row match counts. No searchsorted —
     pure segment-sum + gather over the dense rank space.
 
     Returns (total_matches, counts[cap_l], offsets[cap_l] exclusive-cumsum,
@@ -1325,8 +1242,8 @@ def join_emit_inner(
     searchsorted.
     """
     # all-int32 emit: indices/offsets fit int32 (out_capacity < 2^31 by
-    # construction — the host sized it from the count pass); int64 gathers
-    # and arithmetic here measured ~15x slower on TPU
+    # construction — the host sized it from the count pass), half the
+    # bytes of int64
     cap_l = counts.shape[0]
     counts32 = counts.astype(jnp.int32)
     csum = jnp.cumsum(counts32)
@@ -1393,8 +1310,7 @@ def rank_member(
 ) -> jnp.ndarray:
     """member[i] = probe rank lr[i] occurs among the live right ranks.
     One build-sized presence scatter + one probe gather — replaces the
-    sorted-membership searchsorted, which lowers 50-100x slower than a
-    sort on TPU (docs/TPU_DESIGN.md #2). Used by INTERSECT/EXCEPT and
+    sorted-membership searchsorted. Used by INTERSECT/EXCEPT and
     IN-subquery membership."""
     cap_l = lr.shape[0]
     cap_r = rr.shape[0]
@@ -1529,8 +1445,8 @@ def cume_dist_sorted(seg_change, peer_change) -> jnp.ndarray:
 def _run_broadcast_first(vals: jnp.ndarray, start_flag: jnp.ndarray):
     """Broadcast each run's FIRST value across the run (runs delimited by
     start_flag) — encoded cummax scans, no gathers, no associative_scan
-    (whose TPU lowering is pathologically slow to COMPILE at 16M+ rows;
-    docs/TPU_DESIGN.md #16). The run-start position keys the max; the
+    (slow to compile at 16M+ rows; docs/DESIGN.md #8). The run-start
+    position keys the max; the
     payload rides in the low 32 bits, split into two half scans for
     64-bit payloads (both scans pick the same flagged slot, so the halves
     recombine consistently). Positions before any flag keep their value
@@ -1572,7 +1488,7 @@ def _segment_running_extreme(
     MIN negates the image. 64-bit values keep the associative_scan
     (running extremes are not positional, so the broadcast-first
     half-splitting trick does not apply); their compile cost at very
-    large capacities is a known TPU-lowering hazard (TPU_DESIGN #16)."""
+    large capacities is a known compile-time hazard (docs/DESIGN.md #8)."""
     dt = vals.dtype
     cap = vals.shape[0]
     if dt in (jnp.int32, jnp.float32) and cap < (1 << 29):
@@ -1649,7 +1565,7 @@ def _range_off_bounds(okey, okey_ok, seg_change, peer_change, pad_sorted,
     monotone non-decreasing within each segment (callers negate for DESC,
     so offsets apply uniformly as [k - s_off, k + e_off]).
 
-    No searchsorted (it lowers ~50-100x slower than a sort on TPU): ONE
+    No searchsorted: ONE
     joint lax.sort of (segment, key, tag) over data rows + one probe per
     bounded side places each bound among the data keys; an exclusive
     data-count prefix read at the probe's slot IS the boundary position.
@@ -1766,8 +1682,8 @@ def window_aggregate_sorted(
     if kind in ("partition", "range_current"):
         # gather-free frame sums: P[hi] is "P at the end of my (peer) run"
         # = reverse broadcast-first scan, and P[seg_start-1] is a shift +
-        # forward broadcast — random access is ~element-serial on TPU, so
-        # two associative scans beat two full-length gathers
+        # forward broadcast — two scans in place of two full-length
+        # random gathers
         end_flag = (
             jnp.roll(seg_change, -1).at[cap - 1].set(True)
             if kind == "partition"
@@ -1897,7 +1813,7 @@ def shift_in_segment(
     """LAG(offset>0)/LEAD(offset<0) within segments; out-of-segment -> null.
 
     src = i - offset is a constant shift, so jnp.roll (contiguous copy)
-    replaces the full-length random gather (~element-serial on TPU)."""
+    replaces the full-length random gather."""
     capacity = values.shape[0]
     idx = jnp.arange(capacity, dtype=jnp.int32)
     src = idx - offset

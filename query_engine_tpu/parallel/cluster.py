@@ -37,7 +37,7 @@ def initialize(
 ) -> HostInfo:
     """Join the pod. On single-host setups this is a no-op that reports the
     local topology; on multi-host, args (or the standard JAX env vars /
-    TPU metadata) select the coordination service."""
+    cluster metadata) select the coordination service."""
     multi = (
         coordinator_address is not None
         or os.environ.get("JAX_COORDINATOR_ADDRESS")
@@ -61,7 +61,7 @@ def initialize(
 
 
 def global_mesh(axis: str = "data"):
-    """A mesh over every chip in the pod (ICI within slices, DCN across)."""
+    """A mesh over every device of every process in the cluster."""
     from query_engine_tpu.parallel.mesh import make_mesh
 
     return make_mesh(jax.devices(), axis)

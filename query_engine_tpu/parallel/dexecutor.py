@@ -80,7 +80,7 @@ class DistributedExecutor:
                  fault: Optional[FaultManager] = None,
                  mesh=None):
         """mesh: optional jax.sharding.Mesh. When set, eligible plans
-        execute as ONE shard_map program over the mesh (the TPU-native
+        execute as ONE shard_map program over the mesh (the SPMD
         path, parallel/mesh_pipeline.py) instead of the host-side stage
         walk; plans without a distributed lowering (and all fault/
         checkpoint-exercising paths) use the stage walk below."""

@@ -3,7 +3,7 @@
 SURVEY.md §7 hard-part #3: each host ingests its rows independently and
 builds a LOCAL sorted dictionary; before any cross-shard keyed operator
 (distributed GROUP BY / ORDER BY / join on a string column) the codes must
-agree globally. The TPU-native protocol:
+agree globally. The protocol:
 
   1. host metadata plane: every host's dictionary VALUES travel over the
      control plane (they are host-side Python strings, never device data —

@@ -7,7 +7,7 @@ resets the counter; per-query checkpoints of completed stages + intermediate
 results with recover_from_checkpoint -> RecoveryPlan{resume_from_stage}
 (:209-249); stats + aged cleanup.
 
-TPU mapping (SURVEY.md §5): checkpoints hold the partitioned intermediate
+Device mapping (SURVEY.md §5): checkpoints hold the partitioned intermediate
 ColumnBatches at stage boundaries in host RAM (orbax-style disk spill is a
 follow-up), keyed by (query_id, stage_id); on failure the executor re-runs
 from the first un-checkpointed stage.

@@ -5,8 +5,8 @@ Parity surface: reference crates/query-distributed/src/flight_transport.rs:
 FlightEndpoints, execute_on_worker ships SQL text over Arrow Flight,
 execute_on_all fans out; DistributedTransport trait.
 
-In the TPU design this path is the cross-cluster / ingress fallback only —
-intra-pod exchange is SPMD collectives (parallel/spmd.py). execute_on_all
+In this design this path is the cross-cluster / ingress fallback only —
+intra-cluster exchange is SPMD collectives (parallel/spmd.py). execute_on_all
 fans out concurrently (the reference loops sequentially).
 """
 

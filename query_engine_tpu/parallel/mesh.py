@@ -1,11 +1,11 @@
 """Device mesh + row-sharded tables.
 
 Replaces the reference's coordinator/worker cluster topology
-(query-distributed/src/types.rs, coordinator.rs) with the TPU-native model:
-a `jax.sharding.Mesh` over all chips, tables sharded row-wise along the
+(query-distributed/src/types.rs, coordinator.rs) with the SPMD model:
+a `jax.sharding.Mesh` over all devices, tables sharded row-wise along the
 'data' axis (the SQL analog of data parallelism — SURVEY.md §5
 "long-context" note: scaling the row dimension), and XLA collectives over
-ICI instead of Arrow Flight RPCs.
+the device interconnect instead of Arrow Flight RPCs.
 
 Single controller, SPMD: host 0 drives one jitted program per stage
 (SURVEY.md §7 design stance).

@@ -15,10 +15,10 @@ jitted shard_map program: no per-stage host hops, no serialization, no RPC.
 The reference's distributed executor walks a stage DAG and "simulates"
 execution by echoing partition input (crates/query-distributed/src/
 executor.rs:148-209, planner.rs:200-249, worker.rs:132-137); this module
-is the working TPU-native replacement: the shuffle IS the collective.
+is the working SPMD replacement: the shuffle IS the collective.
 
 Exchanges are capacity-bounded by default (BASELINE scaling target;
-docs/TPU_DESIGN.md #5): each shard's send buffer to each destination is
+docs/DESIGN.md #4): each shard's send buffer to each destination is
 the balanced share x a growth factor (multiples of 128, not pow2 — pow2
 rounding alone costs up to 2x work inflation). Overflow is detected
 in-program (one psum'd scalar), and the driver retries with the factor
@@ -1663,7 +1663,7 @@ class MeshPipeline:
     def _exchange(self, t: _TTable, pid, ov, factor) -> _TTable:
         """Repartition a traced table's selected rows by `pid` via ONE
         lax.all_to_all per plane. Send capacity per destination is the
-        balanced share x factor rounded to 128 (docs/TPU_DESIGN.md #5:
+        balanced share x factor rounded to 128 (docs/DESIGN.md #4:
         unbounded exchanges inflate local work ~Nx); dropped rows raise the
         overflow scalar and the driver retries with a doubled factor."""
         n = self.n

@@ -6,8 +6,8 @@ WorkerMessage (Register/TaskComplete/TaskProgress/Heartbeat/Pong) enums,
 `SerializedBatch` = Arrow IPC stream round-trip (:54-101),
 TaskExecutionRequest/Response, NetworkConfig (64MB max message).
 
-TPU placement note (SURVEY.md §5): inside a pod, data moves as device
-arrays over ICI with no serialization; Arrow IPC is used only at the
+Placement note (SURVEY.md §5): inside a cluster, data moves as device
+arrays over the interconnect with no serialization; Arrow IPC is used only at the
 control plane / ingress edges (shipping plan fragments + small payloads
 between host processes over DCN).
 """

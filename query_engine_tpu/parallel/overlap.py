@@ -2,19 +2,19 @@
 
 The reference walks distributed stages strictly sequentially — every
 Exchange completes before the next stage's operators start
-(crates/query-distributed/src/executor.rs:148-209). The TPU-native
+(crates/query-distributed/src/executor.rs:148-209). The SPMD
 redesign overlaps them: rows are split into C chunks, and the stage loop
 is unrolled INSIDE one jitted SPMD program so that chunk k+1's
 `lax.all_to_all` has no data dependence on chunk k's operator compute.
-XLA's latency-hiding scheduler can then issue the collective DMA over ICI
-while the VPU/MXU work on the previous chunk — the classic double-buffer
-pattern (pallas_guide.md "Patterns: Double Buffering", here at the XLA
-program level where the compiler owns the async collective pair).
+XLA's latency-hiding scheduler can then issue the collective over the
+interconnect while the previous chunk computes — the classic double-buffer
+pattern, here at the XLA program level where the compiler owns the async
+collective pair.
 
 Two additional wins apply even where collectives cannot physically
 overlap (the single-host virtual mesh used for testing):
   * one dispatch instead of 2C (no host round-trip between stages);
-  * chunk intermediates stay in VMEM-sized working sets instead of
+  * chunk intermediates stay in chunk-sized working sets instead of
     materializing a full-capacity exchanged table to HBM between stages.
 
 benchmarks/overlap_bench.py measures the fused-overlapped program against
@@ -45,7 +45,7 @@ def make_overlapped_exchange_aggregate(
     Per chunk: rows route to their key's owner shard via all_to_all, the
     owner accumulates SUM/COUNT per key bucket. The loop is unrolled so
     chunk k+1's all_to_all is independent of chunk k's aggregation —
-    overlap is the compiler's to exploit on real ICI.
+    overlap is the compiler's to exploit on a real interconnect.
 
     Input (per shard): key[cap] int, kv[cap] bool, val[cap] int64,
     n_rows[1]. Output: per-shard bucket sums/counts (buckets = key % n,

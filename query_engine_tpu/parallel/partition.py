@@ -6,7 +6,7 @@ gather rows per partition via take, :151-212,292-316), Range (boundary scan
 :232-289), RoundRobin (batch-level modulo :215-229), Single (gather), and
 `route(key)` for key->partition routing.
 
-TPU-native: partition ids are computed on-device (splitmix64 of the
+Partition ids are computed on-device (splitmix64 of the
 orderable key), the per-partition gathers are device `take`s, and inside an
 SPMD program the same math feeds `lax.all_to_all` (parallel/spmd.py) instead
 of materializing per-partition batches. This host-level API exists for the

@@ -1,10 +1,10 @@
 """SPMD distributed query kernels: shard_map pipelines over the mesh.
 
-This is the TPU-native replacement for the reference's distributed shuffle
+This is the SPMD replacement for the reference's distributed shuffle
 (query-distributed: Partitioner partition.rs:151-212 per-row hash + take,
 Exchange/Merge operators.rs:17-294, two-stage partial/final aggregates
 planner.rs:200-226): rows live sharded across chips, the hash shuffle is a
-single `lax.all_to_all` over ICI inside a jitted shard_map program, and
+single `lax.all_to_all` inside a jitted shard_map program, and
 partial/final aggregation happens on both sides of that collective — no
 serialization, no RPC (SURVEY.md §5 "Distributed communication backend").
 
@@ -22,26 +22,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map as _shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
+
+from query_engine_tpu.ops import kernels as K
 
 
 def shard_map(f, mesh, in_specs, out_specs, **kw):
-    """Version-compat shard_map: replication checking is off (our kernels
-    mix per-shard scalars and collectives freely)."""
-    for flag in ("check_vma", "check_rep"):
-        try:
-            return _shard_map(
-                f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                **{flag: False}, **kw,
-            )
-        except TypeError:
-            continue
-    return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **kw)
-
-from query_engine_tpu.ops import kernels as K
+    """jax.shard_map with replication checking off (our kernels mix
+    per-shard scalars and collectives freely)."""
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=False, **kw,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +60,7 @@ def partition_ids(
 
 
 # ---------------------------------------------------------------------------
-# the exchange: bucket locally, all_to_all over ICI
+# the exchange: bucket locally, all_to_all across the mesh
 # ---------------------------------------------------------------------------
 
 
@@ -86,13 +77,10 @@ def bucket_rows(
 
     For the mesh-sized n_parts (<= 32) this is a COUNTING scatter, not a
     sort: a [rows, n_parts] one-hot cumsum gives each row its within-bucket
-    rank in O(rows * n_parts) VPU work (constant total work across the
-    mesh, since rows = table/n_parts per shard), then ONE scatter places
-    row indices into their [dest, rank] slot. The previous stable
-    lax.sort([pid, iota]) cost ~1.05 s at 4M rows on the measurement box —
-    ~30% of the whole distributed-sort step (benchmarks/
-    probe_sort_phases.py); the counting version is ~5x cheaper and on TPU
-    trades an 8.6 ns/row packed sort for one 10 ns/row scatter plus scans.
+    rank in O(rows * n_parts) elementwise work (constant total work
+    across the mesh, since rows = table/n_parts per shard), then ONE
+    scatter places row indices into their [dest, rank] slot, in place of
+    a stable lax.sort([pid, iota]).
     Above 32 destinations the sort variant wins again (one-hot width) and
     is kept as the fallback.
     """
@@ -339,7 +327,7 @@ def _cap128(x: int) -> int:
     """Capacity rounding in multiples of 128 lanes — NOT pow2 buckets:
     pow2 rounding of a 1.25x-slack capacity costs up to 2x local-work
     inflation by itself (round-2 scaling showed 1.84-1.89x join/sort
-    inflation from exactly this; docs/TPU_DESIGN.md #5)."""
+    inflation from exactly this; docs/DESIGN.md #4)."""
     return max(128, ((int(x) + 127) // 128) * 128)
 
 
@@ -353,7 +341,7 @@ def send_cap(per_shard: int, n: int, factor) -> int:
 
 
 DEFAULT_RECV_FACTOR = 1.125  # bounded exchanges are the DEFAULT; overflow
-# flags + the caller's grow-and-retry handle skew (TPU_DESIGN #5).
+# flags + the caller's grow-and-retry handle skew (docs/DESIGN.md #4).
 # Round 5: 1.25 -> 1.125. Every point of receive capacity is a point of
 # LOCAL WORK downstream (the received planes feed full-capacity sorts and
 # scans), and splitmix64 hash balance at mesh sizes is sub-percent for

@@ -5,7 +5,7 @@ WorkerId/QueryId/TaskId (UUID), WorkerStatus, WorkerInfo (+is_stale),
 ClusterStatus (+utilization), ClusterConfig, QueryTask, TaskStatus,
 TaskResult.
 
-TPU mapping (SURVEY.md §2.10): a "worker" is a host process
+Device mapping (SURVEY.md §2.10): a "worker" is a host process
 (jax.process_index) driving its slice of the mesh; a task is one shard of a
 stage's jitted program. The control-plane bookkeeping survives for elastic
 membership and fault handling; the data plane is XLA collectives.

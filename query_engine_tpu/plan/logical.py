@@ -1130,7 +1130,7 @@ class Unnest(LogicalPlan):
 class GenerateSeries(LogicalPlan):
     """GENERATE_SERIES(start, stop[, step]): arithmetic series over int64,
     DATE32 (days) or TIMESTAMP (micros) — lowers to a device iota, the
-    cheapest possible TPU relation. Month-stepped temporal series (the one
+    cheapest possible device relation. Month-stepped temporal series (the one
     non-uniform stride) carry precomputed `values` instead."""
     start: int
     stop: int

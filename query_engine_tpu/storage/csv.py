@@ -12,8 +12,11 @@ from __future__ import annotations
 
 from typing import Optional
 
-import pyarrow as pa
-import pyarrow.csv as pacsv
+try:
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+except ImportError as e:  # pyarrow is optional for the rest
+    raise ImportError(f"CSV support needs pyarrow: {e}") from e
 
 from query_engine_tpu.core.errors import StorageError
 from query_engine_tpu.core.schema import Schema

@@ -8,7 +8,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-import pyarrow.parquet as pq
+try:
+    import pyarrow.parquet as pq
+except ImportError as e:  # pyarrow is optional for the rest
+    raise ImportError(f"Parquet support needs pyarrow: {e}") from e
 
 from query_engine_tpu.core.errors import StorageError
 from query_engine_tpu.core.schema import Schema

@@ -2,24 +2,71 @@
 
 Parity surface (SURVEY.md §5 auxiliary subsystems): the reference logs with
 the `tracing` crate and ad-hoc Instant::now timing (repl.rs:303,347,
-worker.rs:96-108). TPU-native upgrade: structured per-operator wall-clock +
-rows/sec + achieved-bandwidth counters against a roofline, plus
-jax.profiler trace capture for Perfetto.
+worker.rs:96-108). Here: structured per-operator wall-clock + rows/sec +
+achieved-bandwidth counters against the device's published peak, the
+device record every measurement carries, and jax.profiler trace capture
+for Perfetto.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import subprocess
 import time
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 logger = logging.getLogger("query_engine_tpu")
 
-# v5e HBM bandwidth, used for roofline fractions (bytes/sec)
-TPU_V5E_HBM_BYTES_PER_SEC = 819e9
+# Published peaks by jax `device_kind`, dense rates without sparsity. A
+# roofline share is stated against these.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_sec": 3.35e12,
+        "bf16_flops_per_sec": 989e12,
+        "source": "NVIDIA H100 Tensor Core GPU data sheet, SXM part",
+    },
+}
+# Backends that are no accelerator and so have no roofline.
+HOST_PLATFORMS = frozenset({"cpu"})
+
+
+def device_peaks(device=None) -> Optional[dict]:
+    """Published peaks of `device` (default: the first JAX device); None
+    on the CPU backend. An accelerator missing from DEVICE_PEAKS raises:
+    a roofline share against a guessed peak would mislead."""
+    import jax
+
+    device = device if device is not None else jax.devices()[0]
+    if device.platform in HOST_PLATFORMS:
+        return None
+    try:
+        return DEVICE_PEAKS[device.device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device_kind {device.device_kind!r}; "
+            "add them to DEVICE_PEAKS with their source"
+        ) from None
+
+
+def device_record(device=None) -> dict:
+    """What every measurement names: platform, device_kind and device
+    count as JAX reports them, and on an NVIDIA GPU the card's name and
+    power limit from nvidia-smi (a child process, off JAX)."""
+    import jax
+
+    device = device if device is not None else jax.devices()[0]
+    rec = {"platform": device.platform, "kind": device.device_kind,
+           "count": len(jax.devices())}
+    if device.platform == "gpu":
+        rec["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip()
+    return rec
 
 
 @dataclass
@@ -33,12 +80,12 @@ class OpStats:
     def rows_per_sec(self) -> float:
         return self.total_rows / self.total_secs if self.total_secs else 0.0
 
-    @property
-    def bandwidth_fraction(self) -> float:
-        """Achieved HBM bandwidth / roofline."""
-        if not self.total_secs:
-            return 0.0
-        return (self.total_bytes / self.total_secs) / TPU_V5E_HBM_BYTES_PER_SEC
+    def bandwidth_fraction(self, peaks: Optional[dict]) -> Optional[float]:
+        """Achieved memory bandwidth / the device's published peak; None
+        without a peak (CPU backend) or a timing."""
+        if peaks is None or not self.total_secs:
+            return None
+        return (self.total_bytes / self.total_secs) / peaks["hbm_bytes_per_sec"]
 
 
 @dataclass
@@ -84,26 +131,33 @@ class Profiler:
             s.total_bytes += rec.bytes
 
     def report(self) -> str:
+        peaks = device_peaks()
         lines = ["operator             calls     total_ms       rows/s  bw_frac"]
         for name in sorted(self.ops):
             s = self.ops[name]
+            frac = s.bandwidth_fraction(peaks)
             lines.append(
                 f"{name:<20} {s.calls:>5} {s.total_secs * 1e3:>12.2f} "
-                f"{s.rows_per_sec:>12,.0f} {s.bandwidth_fraction:>8.3f}"
+                f"{s.rows_per_sec:>12,.0f} "
+                + (f"{frac:>8.3f}" if frac is not None else f"{'-':>8}")
             )
         return "\n".join(lines)
 
     def snapshot(self) -> Dict[str, dict]:
-        """Per-op dict for structured emission (bench JSON)."""
-        return {
-            name: {
+        """Per-op dict for structured emission (bench JSON); the roofline
+        share only where the device has a published peak."""
+        peaks = device_peaks()
+        out = {}
+        for name, s in sorted(self.ops.items()):
+            out[name] = {
                 "calls": s.calls,
                 "total_ms": round(s.total_secs * 1e3, 3),
                 "rows_per_sec": round(s.rows_per_sec, 1),
-                "hbm_roofline_frac": round(s.bandwidth_fraction, 4),
             }
-            for name, s in sorted(self.ops.items())
-        }
+            frac = s.bandwidth_fraction(peaks)
+            if frac is not None:
+                out[name]["hbm_roofline_frac"] = frac
+        return out
 
     def reset(self) -> None:
         self.ops.clear()
@@ -113,7 +167,7 @@ GLOBAL_PROFILER = Profiler(enabled=False)
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str = "/tmp/qe_trace"):
+def device_trace(log_dir: str):
     """Capture a jax.profiler trace viewable in Perfetto/XProf."""
     import jax
 

@@ -1,5 +1,5 @@
 """GENERATE_SERIES table function: int64 arithmetic series as a device
-iota — the cheapest possible TPU relation (no reference analog; PG
+iota — the cheapest possible device relation (no reference analog; PG
 set-returning function subset: constant integer arguments)."""
 
 import pytest
